@@ -2,4 +2,4 @@
 # Save the container image for upload (parity with reference export.sh)
 set -euo pipefail
 ./build.sh
-docker save dram_emph_subtype_tpu | gzip -c > dram_emph_subtype_tpu.tar.gz
+docker save dram_emph_subtype | gzip -c > dram_emph_subtype.tar.gz

@@ -10,9 +10,7 @@ import logging
 import warnings
 from argparse import ArgumentParser
 
-from bodyct_dram_emph_subtype_tpu.utils.cli import apply_platform_env, parse_size
-
-apply_platform_env()
+from bodyct_dram_emph_subtype.utils.cli import enable_compile_cache, parse_size
 
 warnings.filterwarnings("ignore")
 logging.basicConfig(level=logging.INFO,
@@ -42,16 +40,15 @@ def run_testing_job():
     parser.add_argument("--device_preprocess", action="store_true",
                         default=True,
                         help="default-on: windowing/standardize/resize/"
-                             "ess-mask run fused on the TPU (~25x fewer "
-                             "host-link bytes). Chip-measured agreement "
-                             "with the host torch-parity path is <1e-5 in "
-                             "the lesion percentages (exact-integer resize "
-                             "index math, DEVNOTES round 4); scans whose "
-                             "crop exceeds --pad_shape fall back per-scan")
+                             "ess-mask run fused on the device (exact-"
+                             "integer resize index math, so the lesion "
+                             "percentages agree with the host torch-parity "
+                             "path); scans whose crop exceeds --pad_shape "
+                             "fall back per-scan")
     parser.add_argument("--host_preprocess", action="store_true",
                         help="force the strict host torch-parity "
-                             "preprocessing path (the pre-round-4 clinical "
-                             "default) instead of the fused device path")
+                             "preprocessing path instead of the fused "
+                             "device path")
     parser.add_argument("--pad_shape", default=(160, 288, 384),
                         type=parse_size,
                         help="static raw-volume buffer for the device "
@@ -66,8 +63,9 @@ def run_testing_job():
     parser.add_argument("--local_rank", default=0, type=int,
                         help="this argument is not used and should be ignored")
     args = parser.parse_args()
+    enable_compile_cache()
 
-    from bodyct_dram_emph_subtype_tpu.inference import run_inference
+    from bodyct_dram_emph_subtype.inference import run_inference
 
     logging.info("starting the inference.")
     results = run_inference(

@@ -5,4 +5,4 @@ set -euo pipefail
 docker run --rm --privileged \
     -v "$1":/input/ \
     -v "$2":/output/ \
-    dram_emph_subtype_tpu
+    dram_emph_subtype

@@ -5,10 +5,8 @@ split, emitting confusion matrices, CSVs, and heatmap tiles."""
 import logging
 from argparse import ArgumentParser
 
-from bodyct_dram_emph_subtype_tpu.utils.cli import apply_platform_env, parse_size
+from bodyct_dram_emph_subtype.utils.cli import enable_compile_cache, parse_size
 from pathlib import Path
-
-apply_platform_env()
 
 
 def run_testing_job():
@@ -35,8 +33,9 @@ def run_testing_job():
     parser.add_argument("--local_rank", default=0, type=int,
                         help="this argument is not used and should be ignored")
     args = parser.parse_args()
+    enable_compile_cache()
 
-    from bodyct_dram_emph_subtype_tpu.train import (SubtypeTrainer,
+    from bodyct_dram_emph_subtype.train import (SubtypeTrainer,
                                                     TrainerConfig)
 
     config = TrainerConfig(

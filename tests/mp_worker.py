@@ -38,10 +38,10 @@ import numpy as np  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from bodyct_dram_emph_subtype_tpu.models.resnet3d import ResNetSegReg  # noqa: E402
-from bodyct_dram_emph_subtype_tpu.parallel.mesh import (  # noqa: E402
+from bodyct_dram_emph_subtype.models.resnet3d import ResNetSegReg  # noqa: E402
+from bodyct_dram_emph_subtype.parallel.mesh import (  # noqa: E402
     MeshSpec, get_mesh, process_local_data, shard_batch)
-from bodyct_dram_emph_subtype_tpu.train import (  # noqa: E402
+from bodyct_dram_emph_subtype.train import (  # noqa: E402
     TrainState, make_optimizer, make_reg_train_step)
 
 assert jax.process_count() == NPROC, jax.process_count()

@@ -4,8 +4,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from bodyct_dram_emph_subtype_tpu.transforms import batch_augment
-from bodyct_dram_emph_subtype_tpu.transforms.batch_augment import \
+from bodyct_dram_emph_subtype.transforms import batch_augment
+from bodyct_dram_emph_subtype.transforms.batch_augment import \
     set_noise_rng
 
 

@@ -1,5 +1,5 @@
-"""Checkpoint interop: torch→npz→greedy restore, orbax processor loading,
-best-epoch restore."""
+"""Checkpoint interop: torch→npz→greedy restore, processor loading of a
+train checkpoint directory, best-epoch restore."""
 import subprocess
 import sys
 from pathlib import Path
@@ -10,8 +10,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from bodyct_dram_emph_subtype_tpu.models import get_model_by_name
-from bodyct_dram_emph_subtype_tpu.train import (
+from bodyct_dram_emph_subtype.models import get_model_by_name
+from bodyct_dram_emph_subtype.train import (
     CheckpointManager,
     TrainState,
     greedy_restore_variables,
@@ -53,8 +53,8 @@ def test_torch_ckpt_to_npz_roundtrip(tmp_path):
 
 
 def test_processor_loads_orbax_dir(tmp_path):
-    """run_inference accepts an Orbax checkpoint directory (train→deploy)."""
-    from bodyct_dram_emph_subtype_tpu.inference import run_inference
+    """run_inference accepts a train checkpoint directory (train→deploy)."""
+    from bodyct_dram_emph_subtype.inference import run_inference
     from tests.test_processor import _write_case
 
     model = get_model_by_name("med3ddramtiny")
@@ -62,9 +62,7 @@ def test_processor_loads_orbax_dir(tmp_path):
     variables = dict(model.init(jax.random.PRNGKey(3), x, x, train=False))
     state = TrainState.create(variables, make_optimizer())
     ckpt_dir = tmp_path / "ckpts"
-    mgr = CheckpointManager(ckpt_dir)
-    mgr.save(0, jax.device_get(state))
-    mgr.close()
+    CheckpointManager(ckpt_dir).save(0, state)
 
     scan_dir = tmp_path / "ct"
     lobe_dir = tmp_path / "lobes"
@@ -80,7 +78,7 @@ def test_processor_loads_orbax_dir(tmp_path):
 
 
 def test_restore_best_picks_lowest_loss(tmp_path):
-    from bodyct_dram_emph_subtype_tpu.train import SubtypeTrainer, TrainerConfig
+    from bodyct_dram_emph_subtype.train import SubtypeTrainer, TrainerConfig
     cfg = TrainerConfig(model_arch="med3ddramtiny", model_path=str(tmp_path),
                         target_size=(16, 24, 32), nchips=1)
     trainer = SubtypeTrainer(cfg)

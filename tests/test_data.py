@@ -3,7 +3,7 @@ stratified sampler statistics, index sharding."""
 import numpy as np
 import pytest
 
-from bodyct_dram_emph_subtype_tpu.data import (
+from bodyct_dram_emph_subtype.data import (
     COPDGeneSubtyping,
     DataLoader,
     SubtypingInference,
@@ -14,7 +14,7 @@ from bodyct_dram_emph_subtype_tpu.data import (
     shard_indices,
     write_mha,
 )
-from bodyct_dram_emph_subtype_tpu.data.datasets import CLE_RATIO_MAP
+from bodyct_dram_emph_subtype.data.datasets import CLE_RATIO_MAP
 
 
 @pytest.mark.parametrize("compressed", [True, False])
@@ -71,11 +71,11 @@ def test_inference_dataset(tmp_path):
 
 
 def test_inference_dataset_reference_semantics(tmp_path):
-    """The crop-local dilation/mask-out (round 5) must reproduce the
+    """The crop-local dilation/mask-out must reproduce the
     reference order exactly: dilate FULL volume ×2, mask −2048, crop
     (reference dataset.py:68-71) — including a lung touching the volume
     edge (crop == whole volume, exercising the codec's read-only view)."""
-    from bodyct_dram_emph_subtype_tpu.ops.morphology import (
+    from bodyct_dram_emph_subtype.ops.morphology import (
         binary_dilate_np, find_crops_np)
     scan_dir = tmp_path / "ct"
     lobe_dir = tmp_path / "lobes"
@@ -129,7 +129,7 @@ def test_inference_dataset_float_scan_ess_threshold(tmp_path):
 
 def test_find_crops_np_matches_nonzero_reference():
     import math
-    from bodyct_dram_emph_subtype_tpu.ops.morphology import find_crops_np
+    from bodyct_dram_emph_subtype.ops.morphology import find_crops_np
     rng = np.random.RandomState(7)
     for _ in range(10):
         shape = tuple(rng.randint(5, 30, 3))

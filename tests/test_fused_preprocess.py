@@ -3,8 +3,8 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from bodyct_dram_emph_subtype_tpu.data.host_preprocess import preprocess_sample
-from bodyct_dram_emph_subtype_tpu.ops.preprocess import fused_preprocess
+from bodyct_dram_emph_subtype.data.host_preprocess import preprocess_sample
+from bodyct_dram_emph_subtype.ops.preprocess import fused_preprocess
 
 
 def test_fused_matches_host_chain(rng):
@@ -45,9 +45,9 @@ def test_preselected_matches_fused(rng):
     full-volume fused path: masks bit-exactly, image within f32
     moment-summation noise (the host moments are MORE accurate —
     ``window_moments_np``)."""
-    from bodyct_dram_emph_subtype_tpu.data.host_preprocess import (
+    from bodyct_dram_emph_subtype.data.host_preprocess import (
         depth_indices_np, resize_nearest_np, window_moments_np)
-    from bodyct_dram_emph_subtype_tpu.ops.preprocess import \
+    from bodyct_dram_emph_subtype.ops.preprocess import \
         fused_preprocess_preselected
 
     target = (16, 24, 32)
@@ -89,7 +89,7 @@ def test_preselected_matches_fused(rng):
 def test_window_moments_match_oracle(rng):
     """Exact-integer moments agree with the torch-parity oracle's f32
     mean/std to f32 summation noise."""
-    from bodyct_dram_emph_subtype_tpu.data.host_preprocess import \
+    from bodyct_dram_emph_subtype.data.host_preprocess import \
         window_moments_np
 
     img = rng.randint(-1300, -350, (37, 41, 53)).astype(np.int16)

@@ -23,13 +23,13 @@ def _run():
     import jax
     import jax.numpy as jnp
 
-    from bodyct_dram_emph_subtype_tpu.models import get_model_by_name
-    from bodyct_dram_emph_subtype_tpu.parallel.mesh import (
+    from bodyct_dram_emph_subtype.models import get_model_by_name
+    from bodyct_dram_emph_subtype.parallel.mesh import (
         MeshSpec, get_mesh, shard_batch)
-    from bodyct_dram_emph_subtype_tpu.train import (
+    from bodyct_dram_emph_subtype.train import (
         TrainState, make_optimizer, make_reg_train_step)
-    from bodyct_dram_emph_subtype_tpu.train.steps import make_eval_step
-    from bodyct_dram_emph_subtype_tpu.utils.metrics_eval import (
+    from bodyct_dram_emph_subtype.train.steps import make_eval_step
+    from bodyct_dram_emph_subtype.utils.metrics_eval import (
         classification_report)
     from tests.test_learning import _synthetic_batch
 

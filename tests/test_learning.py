@@ -13,10 +13,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from bodyct_dram_emph_subtype_tpu.data.datasets import CLE_RATIO_MAP
-from bodyct_dram_emph_subtype_tpu.models import get_model_by_name
-from bodyct_dram_emph_subtype_tpu.parallel.mesh import MeshSpec, get_mesh, shard_batch
-from bodyct_dram_emph_subtype_tpu.train import (
+from bodyct_dram_emph_subtype.data.datasets import CLE_RATIO_MAP
+from bodyct_dram_emph_subtype.models import get_model_by_name
+from bodyct_dram_emph_subtype.parallel.mesh import MeshSpec, get_mesh, shard_batch
+from bodyct_dram_emph_subtype.train import (
     TrainState,
     make_optimizer,
     make_reg_train_step,

@@ -5,8 +5,8 @@ import torch.nn.functional as F
 
 import jax.numpy as jnp
 
-from bodyct_dram_emph_subtype_tpu.data import CLE_RATIO_MAP, PSE_RATIO_MAP
-from bodyct_dram_emph_subtype_tpu.losses import (
+from bodyct_dram_emph_subtype.data import CLE_RATIO_MAP, PSE_RATIO_MAP
+from bodyct_dram_emph_subtype.losses import (
     generate_regression_labels,
     interval_regression_loss,
     masked_balanced_bce,

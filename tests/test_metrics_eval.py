@@ -2,7 +2,7 @@
 import numpy as np
 from sklearn.metrics import cohen_kappa_score, f1_score
 
-from bodyct_dram_emph_subtype_tpu.utils.metrics_eval import (
+from bodyct_dram_emph_subtype.utils.metrics_eval import (
     accuracy,
     classification_report,
     macro_f1,

@@ -6,7 +6,7 @@ import torch.nn.functional as F
 
 import jax.numpy as jnp
 
-from bodyct_dram_emph_subtype_tpu.ops import crop_and_resize, grid_sample_3d
+from bodyct_dram_emph_subtype.ops import crop_and_resize, grid_sample_3d
 
 
 def _torch_roi_align(vol, box01, mode, align_corners):
@@ -81,7 +81,7 @@ def test_general_grid_sample_matches_torch(rng):
 
 
 def test_crop_resize_matmul_path_matches_gather(rng):
-    """The MXU tap-matrix path (via='matmul', the fused-augmentation hot
+    """The matmul tap-matrix path (via='matmul', the fused-augmentation hot
     path) must reproduce the gather/lerp path: images to float tolerance,
     masks exactly (one-hot rows select identical taps)."""
     vol = rng.randn(12, 18, 14).astype(np.float32)
@@ -107,7 +107,7 @@ def test_flip_crop_resize_composes_exactly(rng):
     steps 3+4) must equal the sequential formulation: conditional
     jnp.flip per axis, then crop_and_resize gated by crop_gate.  Masks
     exactly, images to float tolerance, across all gate combinations."""
-    from bodyct_dram_emph_subtype_tpu.ops.grid_sample import flip_crop_resize
+    from bodyct_dram_emph_subtype.ops.grid_sample import flip_crop_resize
 
     vol = rng.randn(10, 14, 12).astype(np.float32)
     mask = (rng.rand(10, 14, 12) > 0.5).astype(np.float32)
@@ -141,8 +141,8 @@ def test_flip_crop_resize_mask_out_sizes_composes_downscale(rng):
     resample by tap-matrix row selection — must be BITWISE equal to
     resampling at full size then resize_nearest (the train step relies on
     this to emit half-res mask labels directly)."""
-    from bodyct_dram_emph_subtype_tpu.ops.grid_sample import flip_crop_resize
-    from bodyct_dram_emph_subtype_tpu.ops.resize import resize_nearest
+    from bodyct_dram_emph_subtype.ops.grid_sample import flip_crop_resize
+    from bodyct_dram_emph_subtype.ops.resize import resize_nearest
 
     mask = (rng.rand(12, 16, 20) > 0.5).astype(np.float32)
     center = jnp.asarray((0.46, 0.54, 0.51), jnp.float32)

@@ -5,7 +5,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from bodyct_dram_emph_subtype_tpu.ops import (
+from bodyct_dram_emph_subtype.ops import (
     binary_dilate,
     binary_dilate_np,
     box_cutout,

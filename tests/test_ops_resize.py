@@ -11,7 +11,7 @@ import torch.nn.functional as F
 
 import jax.numpy as jnp
 
-from bodyct_dram_emph_subtype_tpu.ops import (
+from bodyct_dram_emph_subtype.ops import (
     depth_linspace_indices,
     interpolate_volume,
     resize_linear,
@@ -104,7 +104,7 @@ def test_dynamic_in_size_matches_static(rng):
 
 @pytest.mark.parametrize("align_corners", [True, False])
 def test_matmul_resize_matches_gather(rng, align_corners):
-    from bodyct_dram_emph_subtype_tpu.ops.resize import resize_linear_matmul
+    from bodyct_dram_emph_subtype.ops.resize import resize_linear_matmul
     x = rng.randn(2, 9, 11, 13, 4).astype(np.float32)
     out = (18, 22, 26)
     want = np.asarray(resize_linear(jnp.asarray(x), out, (1, 2, 3),
@@ -118,7 +118,7 @@ def test_matmul_resize_matches_gather(rng, align_corners):
 def test_matmul_resize_transpose_adjoint(rng, align_corners):
     """<R d, x> == <d, R^T x>: the percentage-reduction identity used by
     the deployment predict program (inference/processor.py) and bench."""
-    from bodyct_dram_emph_subtype_tpu.ops.resize import (
+    from bodyct_dram_emph_subtype.ops.resize import (
         resize_linear_matmul, resize_linear_matmul_transpose)
     d = rng.rand(2, 9, 11, 13, 1).astype(np.float32)
     x = (rng.rand(2, 18, 22, 26, 1) > 0.5).astype(np.float32)

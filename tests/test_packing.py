@@ -3,7 +3,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from bodyct_dram_emph_subtype_tpu.ops.packing import (
+from bodyct_dram_emph_subtype.ops.packing import (
     WINDOW_HI, WINDOW_LO, pack10_host, pack12_host, unpack10_device,
     unpack12_device)
 
@@ -26,7 +26,7 @@ def test_pack_clips_out_of_range(rng):
 def test_pack10_window_matches_preprocess_window():
     # the clamp-before-pack exactness argument relies on the transport
     # window being the preprocessing window
-    from bodyct_dram_emph_subtype_tpu.ops.preprocess import WINDOW
+    from bodyct_dram_emph_subtype.ops.preprocess import WINDOW
     assert (float(WINDOW_LO), float(WINDOW_HI)) == WINDOW
 
 
@@ -44,7 +44,7 @@ def test_pack10_preprocess_equals_raw_preprocess(rng):
     # clamping to the window before packing changes NOTHING the fused
     # preprocess computes: window rescale, standardize stats, and the
     # em/ess threshold masks (−950/−910 both inside the window)
-    from bodyct_dram_emph_subtype_tpu.ops.preprocess import fused_preprocess
+    from bodyct_dram_emph_subtype.ops.preprocess import fused_preprocess
     pad = (8, 12, 16)
     hu = rng.randint(-2048, 500, (2, *pad)).astype(np.int16)
     lung = (rng.rand(2, *pad) > 0.4).astype(np.uint8)
@@ -64,11 +64,11 @@ def test_pack10_preprocess_equals_raw_preprocess(rng):
 
 
 def test_pack10_gated_roundtrip_equals_ungated(rng):
-    """Block-gated transport (round 5): with the deployment mask-out
+    """Block-gated transport with the deployment mask-out
     contract (outside the dilated lung == −2048, reference
     ``dataset.py:69-70``) the block stream + block bits reconstruct
     EXACTLY the clamped volume the ungated 10-bit pack ships."""
-    from bodyct_dram_emph_subtype_tpu.ops.packing import (
+    from bodyct_dram_emph_subtype.ops.packing import (
         gate_blocks_np, gated_budget, pack10_gated_host,
         unpack10_gated_device)
     shape = (8, 16, 16)                      # 2048 vox → 32 blocks of 64
@@ -90,7 +90,7 @@ def test_pack10_gated_roundtrip_equals_ungated(rng):
 
 
 def test_pack10_gated_budget_overflow_raises(rng):
-    from bodyct_dram_emph_subtype_tpu.ops.packing import (
+    from bodyct_dram_emph_subtype.ops.packing import (
         gate_blocks_np, pack10_gated_host)
     hu = np.full((1, 8, 8, 8), -700, np.int16)
     gb = gate_blocks_np(np.ones((1, 512), bool), block=64)
@@ -104,10 +104,10 @@ def test_pack10_gated_value_gate_is_exact(rng):
     when EVERY voxel in it sits at/below the window floor — all of which
     reconstruct to the identical clamp — so padding and mask-out drop out
     automatically and in-window values survive exactly."""
-    from bodyct_dram_emph_subtype_tpu.ops.packing import (
+    from bodyct_dram_emph_subtype.ops.packing import (
         gate_blocks_np, gated_budget, pack10_gated_host,
         unpack10_gated_device)
-    from bodyct_dram_emph_subtype_tpu.ops.packing import WINDOW_HI
+    from bodyct_dram_emph_subtype.ops.packing import WINDOW_HI
     hu = rng.randint(-1400, -200, (2, 8, 16, 16)).astype(np.int16)
     hu[:, :3] = -2048                        # fully-dead region → dropped
     block = 128
@@ -121,7 +121,7 @@ def test_pack10_gated_value_gate_is_exact(rng):
 
 
 def test_pick_gate_block():
-    from bodyct_dram_emph_subtype_tpu.ops.packing import pick_gate_block
+    from bodyct_dram_emph_subtype.ops.packing import pick_gate_block
     assert pick_gate_block(128 * 288 * 384) == 128
     assert pick_gate_block(32 * 56 * 72) == 128
     assert pick_gate_block(64 * 8 * 9) == 64

@@ -3,8 +3,8 @@ mesh via tiled wrap-around padding (single-scan deployment with nchips>1,
 tiny validation sets)."""
 import numpy as np
 
-from bodyct_dram_emph_subtype_tpu.inference import run_inference
-from bodyct_dram_emph_subtype_tpu.train import SubtypeTrainer, TrainerConfig
+from bodyct_dram_emph_subtype.inference import run_inference
+from bodyct_dram_emph_subtype.train import SubtypeTrainer, TrainerConfig
 from tests.test_data import make_training_archive
 from tests.test_processor import _write_case
 

@@ -7,8 +7,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from bodyct_dram_emph_subtype_tpu.data import COPDGeneSubtyping, write_mha
-from bodyct_dram_emph_subtype_tpu.utils.cli import parse_size
+from bodyct_dram_emph_subtype.data import COPDGeneSubtyping, write_mha
+from bodyct_dram_emph_subtype.utils.cli import parse_size
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -3,7 +3,7 @@ import numpy as np
 import pytest
 import torch
 
-from bodyct_dram_emph_subtype_tpu.data.torch_pickle import (
+from bodyct_dram_emph_subtype.data.torch_pickle import (
     load_state_dict,
     load_torch_file,
 )

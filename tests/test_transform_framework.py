@@ -5,7 +5,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from bodyct_dram_emph_subtype_tpu.transforms import (
+from bodyct_dram_emph_subtype.transforms import (
     BaseTransform,
     BoxMaskOut,
     Compose,

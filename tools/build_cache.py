@@ -4,7 +4,7 @@
 
 The reference trains from pre-cached ``{uid}.pth`` dicts (``dataset.py:148``)
 built by an out-of-repo pipeline; this tool is the in-repo, torch-free
-equivalent for the TPU framework's ``.npz`` cache format.  It applies the
+equivalent for the framework's ``.npz`` cache format.  It applies the
 same per-scan preparation as the inference dataset: lung = lobe>0, dilate
 x2, outside→−2048, crop to lung bbox + border.
 
@@ -23,7 +23,7 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from bodyct_dram_emph_subtype_tpu.data import (  # noqa: E402
+from bodyct_dram_emph_subtype.data import (  # noqa: E402
     SubtypingInference,
     read_csv_in_dict,
 )

@@ -6,7 +6,7 @@ Replaces the reference's two probe scripts
 and ``compute_computation_complexity_resnet.py`` — ptflops MACs for MONAI
 resnets) with the XLA-native equivalent:
 ``jit(...).lower().compile().cost_analysis()`` gives compiler-counted FLOPs
-and bytes for the exact program that runs on the TPU.
+and bytes for the exact program that runs on the device.
 
 Usage:
   python tools/compute_computation_complexity.py [--archs med3d,med3ddram50]
@@ -110,8 +110,8 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from bodyct_dram_emph_subtype_tpu.models import get_model_by_name
-    from bodyct_dram_emph_subtype_tpu.utils.cli import parse_size
+    from bodyct_dram_emph_subtype.models import get_model_by_name
+    from bodyct_dram_emph_subtype.utils.cli import parse_size
 
     size = parse_size(args.target_size)
     shape = (args.batch, *size, 1)
@@ -128,7 +128,7 @@ def main():
             # probe the full training step (fwd+bwd+update), the analog of
             # the reference's profiled-fit probe
             # (compute_computation_complexity_proposed.py)
-            from bodyct_dram_emph_subtype_tpu.train import (
+            from bodyct_dram_emph_subtype.train import (
                 TrainState, make_optimizer, make_reg_train_step,
                 make_cls_train_step)
             tx = make_optimizer()

@@ -14,7 +14,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from bodyct_dram_emph_subtype_tpu.data import read_csv_in_dict  # noqa: E402
+from bodyct_dram_emph_subtype.data import read_csv_in_dict  # noqa: E402
 
 
 def main():

@@ -5,14 +5,14 @@
   ``best.ckpt`` style, state-dict keys ``model.*``, ``models.py:408``) into a
   flat ``.npz`` of numpy arrays (keeps the torch names; loadable later with
   ``greedy_restore_variables`` without torch installed);
-- ``--to_orbax``: import a torch checkpoint into a full framework Orbax
-  checkpoint directory for a given arch (params + batch stats, fresh
-  optimizer state).
+- ``--to_checkpoint``: import a torch checkpoint into a framework
+  checkpoint directory (``train/checkpoint.py``) for a given arch (params +
+  batch stats, fresh optimizer state).
 
 Usage:
   python tools/convert_checkpoint.py --src best.ckpt --to_npz best.npz
   python tools/convert_checkpoint.py --src best.ckpt --arch med3ddram \
-      --to_orbax models/subtyping_med3ddram/checkpoints
+      --to_checkpoint models/subtyping_med3ddram/checkpoints
 """
 import argparse
 import sys
@@ -28,12 +28,12 @@ def main():
     parser.add_argument("--src", required=True,
                         help="torch .ckpt/.pth checkpoint")
     parser.add_argument("--to_npz", type=str)
-    parser.add_argument("--to_orbax", type=str)
+    parser.add_argument("--to_checkpoint", type=str)
     parser.add_argument("--arch", default="med3ddram")
     parser.add_argument("--epoch", default=0, type=int)
     args = parser.parse_args()
 
-    from bodyct_dram_emph_subtype_tpu.models.torch_import import (
+    from bodyct_dram_emph_subtype.models.torch_import import (
         load_torch_checkpoint)
 
     state_dict = load_torch_checkpoint(args.src)
@@ -45,14 +45,14 @@ def main():
                                for k, v in state_dict.items()})
         print(f"wrote {args.to_npz}")
 
-    if args.to_orbax:
+    if args.to_checkpoint:
         import jax
         import jax.numpy as jnp
 
-        from bodyct_dram_emph_subtype_tpu.models import get_model_by_name
-        from bodyct_dram_emph_subtype_tpu.models.torch_import import (
+        from bodyct_dram_emph_subtype.models import get_model_by_name
+        from bodyct_dram_emph_subtype.models.torch_import import (
             convert_state_dict)
-        from bodyct_dram_emph_subtype_tpu.train import (
+        from bodyct_dram_emph_subtype.train import (
             CheckpointManager, TrainState, make_optimizer)
 
         model = get_model_by_name(args.arch)
@@ -62,11 +62,9 @@ def main():
         variables, report = convert_state_dict(state_dict, variables)
         print("conversion report:", report)
         state = TrainState.create(variables, make_optimizer())
-        mgr = CheckpointManager(args.to_orbax)
-        mgr.save(args.epoch, jax.device_get(state))
-        mgr.close()
-        print(f"wrote orbax checkpoint epoch {args.epoch} under "
-              f"{args.to_orbax}")
+        CheckpointManager(args.to_checkpoint).save(args.epoch, state)
+        print(f"wrote checkpoint epoch {args.epoch} under "
+              f"{args.to_checkpoint}")
 
 
 if __name__ == "__main__":

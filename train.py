@@ -10,10 +10,8 @@ every-epoch checkpoints, fit then test.
 import logging
 from argparse import ArgumentParser
 
-from bodyct_dram_emph_subtype_tpu.utils.cli import apply_platform_env, parse_size
+from bodyct_dram_emph_subtype.utils.cli import enable_compile_cache, parse_size
 from pathlib import Path
-
-apply_platform_env()
 
 
 def run_training_job():
@@ -56,7 +54,8 @@ def run_training_job():
                         choices=["float32", "bfloat16"])
     parser.add_argument("--input_pipeline", default="host",
                         choices=["host", "device"],
-                        help="device: raw int16 volumes, fused preprocess on TPU")
+                        help="device: raw int16 volumes, fused preprocess on "
+                             "the device")
     parser.add_argument("--pad_shape", default=None, type=parse_size,
                         help="static padded buffer for --input_pipeline=device")
     parser.add_argument("--multihost", action="store_true",
@@ -67,27 +66,23 @@ def run_training_job():
     parser.add_argument("--remat", default="all", type=str,
                         help="activation-checkpoint scopes: 'all', 'none', "
                              "or a comma list from layer1..layer4,decoder "
-                             "(selective remat trades HBM for less "
-                             "backward recompute)")
+                             "(selective remat trades device memory for "
+                             "less backward recompute)")
     parser.add_argument("--noise_rng", default="threefry",
                         choices=["threefry", "rbg"],
                         help="augmentation noise source: per-sample threefry"
-                             " (stream-stable) or one batched hardware-RNG"
-                             " draw (TPU fast path)")
+                             " (stream-stable) or one batched RngBitGenerator"
+                             " draw")
     parser.add_argument("--grad_accum", default=1, type=int,
                         help="gradient-accumulation microbatches per step "
                              "(reg strategy): batch_size stays the "
                              "effective batch but the compiled program "
                              "holds only batch_size/grad_accum samples — "
-                             "scales batch past the per-chip compile/HBM "
-                             "ceiling")
-    parser.add_argument("--packed_decoder", action="store_true",
-                        help="W-pair packed decoder convs: +10%% step speed "
-                             "and less HBM on TPU (numerics equal up to "
-                             "float reassociation)")
+                             "scales batch past what fits in device memory")
     parser.add_argument("--local_rank", default=0, type=int,
                         help="this argument is not used and should be ignored")
     args = parser.parse_args()
+    enable_compile_cache()
 
     if args.momentum is not None or args.weight_decay is not None:
         logging.warning("--momentum/--weight_decay are ignored: the "
@@ -98,7 +93,7 @@ def run_training_job():
         import jax
         jax.distributed.initialize()
 
-    from bodyct_dram_emph_subtype_tpu.train import (SubtypeTrainer,
+    from bodyct_dram_emph_subtype.train import (SubtypeTrainer,
                                                     TrainerConfig)
 
     config = TrainerConfig(
@@ -110,7 +105,7 @@ def run_training_job():
         model_path=args.model_path, nchips=args.nchips, seed=args.seed,
         compute_dtype=args.compute_dtype, profile=args.profile,
         debug_nans=args.debug_nans, input_pipeline=args.input_pipeline,
-        pad_shape=args.pad_shape, packed_decoder=args.packed_decoder,
+        pad_shape=args.pad_shape,
         mesh=args.mesh, remat=args.remat, noise_rng=args.noise_rng,
         grad_accum=args.grad_accum)
     config.exp_path.mkdir(parents=True, exist_ok=True)
